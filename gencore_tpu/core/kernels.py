@@ -1,7 +1,7 @@
 """Device kernels (JAX/XLA) for the consensus engine.
 
-These are the TPU-native reformulations of the reference's per-read scalar
-loops into dense batched tensor ops:
+These reformulate the reference's per-read scalar loops as dense batched
+tensor ops:
 
   * overlap_score_kernel — Pair::computeScore (pair.cpp:70-172) over a batch
     of read pairs [P, L];
@@ -16,7 +16,7 @@ reformulated as an exact integer cross-multiplication so device float
 precision can never flip a branch (see Options ratio fraction).
 
 Everything here is shape-polymorphic over bucketed padded shapes and jit
-cached per shape. Masked lanes are dead weight the VPU eats for free.
+cached per shape.
 """
 
 from __future__ import annotations
@@ -301,8 +301,7 @@ def consensus_kernel(seq, qual, score, valid, pos_valid, refbase,
 
 # --------------------------------------------------------------------------
 # Fused on-device pipeline: scoring + member-gather + voting, with the big
-# read matrices resident on device (minimizes host<->device transfer — the
-# limiting factor over a remote-attached chip).
+# read matrices resident on device (uploaded once per window).
 # --------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=(
@@ -310,8 +309,7 @@ def consensus_kernel(seq, qual, score, valid, pos_valid, refbase,
 def score_map_kernel(seq_all, qual_all, mate_row, my_start, mate_start,
                      cmp_len, my_len, is_left, scored,
                      *, hi, mod, lo, s_hi, s_mod, s_lo, s_bad):
-    """Overlap scoring as a pure per-row gather/map (no scatter — XLA
-    scatters serialize on TPU and dominated the device time).
+    """Overlap scoring as a pure per-row gather/map (no scatter).
 
     Every read row belongs to at most one pair, so instead of computing
     [P, L] pair tensors and scattering them back (score_scatter_kernel),
@@ -338,24 +336,13 @@ def score_map_kernel(seq_all, qual_all, mate_row, my_start, mate_start,
     ts = mate_start[:, None]
     cl = cmp_len[:, None]
     q = qual_all.astype(I32)
-    p_seq_rows = seq_all[mate_row]
-    p_q_rows = qual_all[mate_row]
     in_ov = (j >= ms) & (j < ms + cl) & (j < my_len[:, None])
     # partner alignment p[j] = mate[j + (ts - ms)]: a per-row constant
-    # shift. take_along_axis (per-element gather) scalarizes on TPU
-    # (~2.4s for this shape); log2(L) constant lane-rotations selected by
-    # the shift's bits are vector ops. Circular wrap is harmless: inside
-    # the overlap window the shifted index is in-range by construction,
-    # and positions outside it are masked.
-    both = jnp.stack([p_seq_rows, p_q_rows])          # [2, N, L] u8
-    delta = jnp.mod(mate_start - my_start, L)         # left-roll amount
-    k = 1
-    while k < L:
-        bit = ((delta // k) % 2 == 1)[None, :, None]
-        both = jnp.where(bit, jnp.roll(both, -k, axis=-1), both)
-        k <<= 1
-    p_seq = both[0]
-    p_q = both[1].astype(I32)
+    # shift, gathered per element. Inside the overlap window the shifted
+    # index is in range by construction; positions outside it are masked.
+    idx = jnp.clip(j + (ts - ms), 0, L - 1)
+    p_seq = jnp.take_along_axis(seq_all[mate_row], idx, axis=1)
+    p_q = jnp.take_along_axis(qual_all[mate_row], idx, axis=1).astype(I32)
     q2s = lambda x: _qual2score(x, hi, mod, lo, s_hi, s_mod, s_lo, s_bad)
     match = seq_all == p_seq
     ov_match = q2s((q + p_q) // 2) + 4

@@ -1,9 +1,9 @@
 """Scalar oracle: a faithful, slow re-implementation of the reference
-consensus pipeline, used as the golden model for the vectorized/TPU engine.
+consensus pipeline, used as the golden model for the vectorized engine.
 
 Every routine documents the reference source it models (file:line under
 /root/reference/src). This is an independent implementation from the
-published behavior — the TPU engine is validated against it, and it is
+published behavior — the vectorized engine is validated against it, and it is
 validated against the reference's own unit-test vectors and documented
 semantics.
 

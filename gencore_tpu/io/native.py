@@ -2,7 +2,7 @@
 
 Builds on demand (make in native/) and falls back to the pure-Python codec
 when the toolchain or library is unavailable. The native core does threaded
-BGZF inflate/deflate with libdeflate and BAM record-boundary scanning; the
+BGZF inflate/deflate with zlib and BAM record-boundary scanning; the
 columnar field decode stays in vectorized numpy (io/bam.py).
 """
 

@@ -2,7 +2,7 @@
 
 Mirrors the reference Options POD (reference: src/options.h:15-61,
 src/options.cpp:4-111) including defaults and validation ranges, plus
-TPU-specific knobs (device batching / sharding) that have no reference
+engine knobs (device batching / sharding) that have no reference
 counterpart.
 """
 
@@ -59,7 +59,7 @@ class Options:
     duplex_only: bool = False      # --duplex_only
     disable_duplex: bool = False   # --no_duplex
 
-    # ---- TPU-native engine knobs (no reference counterpart) ----
+    # ---- engine knobs (no reference counterpart) ----
     # halo: same-contig pairs are bounded at 100kb (gencore.cpp:300)
     pair_gap_limit: int = 100_000
     # device batching

@@ -1,21 +1,19 @@
-"""Multi-host execution on the jax.distributed runtime.
+"""Multi-process execution on the jax.distributed runtime.
 
-SURVEY.md §5 names `jax.distributed` as the TPU-native distributed
-backend: every host in a pod slice runs the same program, initialized
-with (coordinator, num_processes, process_id); collectives ride ICI
-within a slice and DCN across hosts. This module is that program for the
-consensus engine:
+Every process runs the same program, initialized with (coordinator,
+num_processes, process_id); on one GPU host process p drives the p-th
+visible card. This
+module is that program for the consensus engine:
 
   * window ownership: coordinate windows round-robined over processes
     (the window plan is a pure function of the input, so no coordination
     is needed to agree on it — same trick as the global tick checkpoint);
   * each process runs the in-process window pipeline on its windows and
     writes its shard payload + bamComp keys to the shared output
-    directory (on a real pod: GCS/NFS);
-  * stats merge across hosts with an allgather over the global device
-    mesh (jax.experimental.multihost_utils.process_allgather — DCN
-    collectives under jax.distributed), then process 0 merges and writes
-    the final BAM + reports.
+    directory;
+  * stats merge across processes with an allgather over the global
+    device mesh (jax.experimental.multihost_utils.process_allgather),
+    then process 0 merges and writes the final BAM + reports.
 
 The subprocess-based form (parallel/multihost.py) remains for
 environments without a coordinator; tests drive THIS module with real
@@ -33,12 +31,31 @@ from gencore_tpu.options import Options
 from gencore_tpu.stats import Stats
 
 
+def runtime_kwargs(coordinator: str, num_processes: int, process_id: int,
+                   cards) -> dict:
+    """jax.distributed.initialize arguments. cards: the visible GPUs
+    (multihost.visible_cards), None or empty off the GPU. On a GPU host
+    process p takes the p-th visible card: without local_device_ids every
+    process would claim every card. The processes share one machine, so a
+    process id past its cards is refused rather than left to ask for a
+    card that does not exist."""
+    kw = dict(coordinator_address=coordinator, num_processes=num_processes,
+              process_id=process_id)
+    if cards:
+        if process_id >= len(cards):
+            raise ValueError(
+                f"process {process_id} has no card: this machine shows "
+                f"{len(cards)} GPUs, one process per card")
+        kw["local_device_ids"] = [process_id]
+    return kw
+
+
 def init_runtime(coordinator: str, num_processes: int, process_id: int):
-    """Bring up the jax.distributed runtime (idempotent per process)."""
+    """Bring up the jax.distributed runtime (once per process)."""
     import jax
-    jax.distributed.initialize(coordinator_address=coordinator,
-                               num_processes=num_processes,
-                               process_id=process_id)
+    from gencore_tpu.parallel.multihost import visible_cards
+    jax.distributed.initialize(**runtime_kwargs(
+        coordinator, num_processes, process_id, visible_cards()))
 
 
 def _allgather_blobs(blob: bytes):
@@ -118,7 +135,7 @@ def run_process(opt: Options, bam_path: str, out_dir: str,
                                        batch.pos.astype(np.int64),
                                        batch.l_qseq.astype(np.int64), nm)
 
-    # DCN stats reduction: allgather each process's stats blob, everyone
+    # stats reduction: allgather each process's stats blob, everyone
     # merges deterministically by process id
     blobs = _allgather_blobs(pickle.dumps((local_pre, local_post)))
     pre = Stats(opt.coverage_step, header.names, header.lengths)

@@ -1,7 +1,7 @@
 """Checkpoint / resume for windowed runs.
 
 The reference is single-pass with no recovery (SURVEY.md §5: errors are
-hard exits; a crash reruns from scratch). The TPU engine's window
+hard exits; a crash reruns from scratch). This engine's window
 decomposition gives natural recovery units: each completed shard writes its
 output payload + serialized stats plus a manifest entry; a resumed run
 skips completed shards and merges.

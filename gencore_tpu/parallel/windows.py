@@ -19,7 +19,7 @@ exactly record-equivalent to a single-shot run:
     the bamComp sort key.
 
 On a multi-host deployment each host decodes only its window span (+100kb
-halo) and owns clusters by the same rule; stats merge over DCN. This module
+halo) and owns clusters by the same rule; stats merge by summation. This module
 implements the single-host multi-shard form that the multi-chip dry-run and
 tests exercise.
 """

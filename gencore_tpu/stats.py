@@ -5,7 +5,7 @@ depth sampling (stats.cpp:39-121), duplication-level histogram
 (stats.cpp:123-133), cluster counters (stats.cpp:135-139), derived rates
 (stats.cpp:141-151) and the JSON emitter (stats.cpp:153-193).
 
-In the TPU engine these are accumulated as vectorized numpy/device
+In the vectorized engine these are accumulated as numpy/device
 histograms and merged across shards with psum; this class is the
 host-side accumulator and the JSON surface.
 """

@@ -1,9 +1,9 @@
-// gcio — native I/O core for the TPU consensus engine.
+// gcio — native I/O core for the consensus engine.
 //
 // Replaces the role htslib plays for the reference implementation
-// (reference links -lhts; this image has no htslib, and the TPU engine
+// (reference links -lhts; this engine does not use htslib, and it
 // wants a parallel decode path anyway): multithreaded BGZF inflate/deflate
-// using libdeflate, BAM record-boundary scanning, and batched record
+// with zlib, BAM record-boundary scanning, and batched record
 // assembly helpers. Exposed as a C ABI for ctypes (no pybind11 in image).
 //
 // Layout contract with gencore_tpu/io/bam.py:
@@ -24,9 +24,57 @@
 #include <thread>
 #include <vector>
 
-#include <libdeflate.h>
+#include <zlib.h>
 
 namespace {
+
+// Raw-DEFLATE codec (zlib) for one BGZF block at a time, one object per
+// thread.
+class Inflater {
+ public:
+  Inflater() { ok_ = inflateInit2(&zs_, -15) == Z_OK; }
+  ~Inflater() { if (ok_) inflateEnd(&zs_); }
+  // true when `in` inflates to exactly out_len bytes
+  bool run(const uint8_t* in, size_t in_len, uint8_t* out, size_t out_len) {
+    if (!ok_ || inflateReset(&zs_) != Z_OK) return false;
+    zs_.next_in = const_cast<Bytef*>(in);
+    zs_.avail_in = static_cast<uInt>(in_len);
+    zs_.next_out = out;
+    zs_.avail_out = static_cast<uInt>(out_len);
+    return inflate(&zs_, Z_FINISH) == Z_STREAM_END && zs_.total_out == out_len;
+  }
+
+ private:
+  z_stream zs_{};
+  bool ok_;
+};
+
+class Deflater {
+ public:
+  explicit Deflater(int level) {
+    ok_ = deflateInit2(&zs_, level, Z_DEFLATED, -15, 8,
+                       Z_DEFAULT_STRATEGY) == Z_OK;
+  }
+  ~Deflater() { if (ok_) deflateEnd(&zs_); }
+  size_t bound(size_t n) { return ok_ ? deflateBound(&zs_, n) : 0; }
+  // compressed size, 0 on failure
+  size_t run(const uint8_t* in, size_t in_len, uint8_t* out, size_t cap) {
+    if (!ok_ || deflateReset(&zs_) != Z_OK) return 0;
+    zs_.next_in = const_cast<Bytef*>(in);
+    zs_.avail_in = static_cast<uInt>(in_len);
+    zs_.next_out = out;
+    zs_.avail_out = static_cast<uInt>(cap);
+    return deflate(&zs_, Z_FINISH) == Z_STREAM_END ? zs_.total_out : 0;
+  }
+
+ private:
+  z_stream zs_{};
+  bool ok_;
+};
+
+uint32_t block_crc32(const uint8_t* p, size_t n) {
+  return static_cast<uint32_t>(crc32(0, p, static_cast<uInt>(n)));
+}
 
 struct Block {
   size_t file_off;   // offset of the block start within the file buffer
@@ -131,19 +179,16 @@ uint8_t* gc_bgzf_read(const char* path, int64_t* out_len, int n_threads) {
   std::atomic<size_t> next(0);
   std::atomic<bool> failed(false);
   auto worker = [&]() {
-    libdeflate_decompressor* d = libdeflate_alloc_decompressor();
+    Inflater d;
     for (;;) {
       size_t i = next.fetch_add(1);
       if (i >= blocks.size() || failed.load(std::memory_order_relaxed)) break;
       const Block& b = blocks[i];
       if (b.out_len == 0) continue;
-      size_t actual = 0;
-      auto r = libdeflate_deflate_decompress(
-          d, file.data() + b.comp_off, b.comp_len, out + b.out_off, b.out_len,
-          &actual);
-      if (r != LIBDEFLATE_SUCCESS || actual != b.out_len) failed.store(true);
+      if (!d.run(file.data() + b.comp_off, b.comp_len, out + b.out_off,
+                 b.out_len))
+        failed.store(true);
     }
-    libdeflate_free_decompressor(d);
   };
   std::vector<std::thread> threads;
   for (int t = 1; t < nt; ++t) threads.emplace_back(worker);
@@ -197,7 +242,7 @@ int gc_bgzf_read_blocks(const char* path, int64_t block_lo, int64_t block_hi,
   std::atomic<int64_t> next(block_lo);
   std::atomic<bool> failed(false);
   auto worker = [&]() {
-    libdeflate_decompressor* d = libdeflate_alloc_decompressor();
+    Inflater d;
     for (;;) {
       int64_t i = next.fetch_add(1);
       if (i >= block_hi || failed.load(std::memory_order_relaxed)) break;
@@ -207,13 +252,10 @@ int gc_bgzf_read_blocks(const char* path, int64_t block_lo, int64_t block_hi,
         failed.store(true);
         break;
       }
-      size_t actual = 0;
-      auto r = libdeflate_deflate_decompress(
-          d, file.data() + b.comp_off, b.comp_len, out + (b.out_off - base),
-          b.out_len, &actual);
-      if (r != LIBDEFLATE_SUCCESS || actual != b.out_len) failed.store(true);
+      if (!d.run(file.data() + b.comp_off, b.comp_len,
+                 out + (b.out_off - base), b.out_len))
+        failed.store(true);
     }
-    libdeflate_free_decompressor(d);
   };
   std::vector<std::thread> threads;
   for (int t = 1; t < nt; ++t) threads.emplace_back(worker);
@@ -248,19 +290,16 @@ int gc_bgzf_read_span(const char* path, int64_t file_lo, int64_t file_hi,
   std::atomic<size_t> next(0);
   std::atomic<bool> failed(false);
   auto worker = [&]() {
-    libdeflate_decompressor* d = libdeflate_alloc_decompressor();
+    Inflater d;
     for (;;) {
       size_t i = next.fetch_add(1);
       if (i >= blocks.size() || failed.load(std::memory_order_relaxed)) break;
       const Block& b = blocks[i];
       if (b.out_len == 0) continue;
-      size_t actual = 0;
-      auto r = libdeflate_deflate_decompress(
-          d, buf.data() + b.comp_off, b.comp_len, out + b.out_off,
-          b.out_len, &actual);
-      if (r != LIBDEFLATE_SUCCESS || actual != b.out_len) failed.store(true);
+      if (!d.run(buf.data() + b.comp_off, b.comp_len, out + b.out_off,
+                 b.out_len))
+        failed.store(true);
     }
-    libdeflate_free_decompressor(d);
   };
   std::vector<std::thread> threads;
   for (int t = 1; t < nt; ++t) threads.emplace_back(worker);
@@ -780,20 +819,19 @@ int gc_bgzf_write_ex(const char* path, const uint8_t* payload, int64_t len,
   std::atomic<size_t> next(0);
   std::atomic<bool> failed(false);
   auto worker = [&]() {
-    libdeflate_compressor* c = libdeflate_alloc_compressor(level);
-    std::vector<uint8_t> tmp(libdeflate_deflate_compress_bound(c, kChunk));
+    Deflater c(level);
+    std::vector<uint8_t> tmp(c.bound(kChunk));
     for (;;) {
       size_t i = next.fetch_add(1);
       if (i >= n_blocks || failed.load(std::memory_order_relaxed)) break;
       size_t off = i * kChunk;
       size_t in_len = std::min(kChunk, static_cast<size_t>(len) - off);
-      size_t c_len = libdeflate_deflate_compress(c, payload + off, in_len,
-                                                 tmp.data(), tmp.size());
+      size_t c_len = c.run(payload + off, in_len, tmp.data(), tmp.size());
       if (c_len == 0 || c_len + 26 > 65536) {
         failed.store(true);
         break;
       }
-      uint32_t crc = libdeflate_crc32(0, payload + off, in_len);
+      uint32_t crc = block_crc32(payload + off, in_len);
       std::vector<uint8_t>& blk = comp[i];
       blk.resize(18 + c_len + 8);
       uint8_t hdr[18] = {0x1f, 0x8b, 0x08, 0x04, 0, 0, 0, 0, 0, 0xff,
@@ -806,7 +844,6 @@ int gc_bgzf_write_ex(const char* path, const uint8_t* payload, int64_t len,
       memcpy(blk.data() + 18 + c_len, &crc, 4);
       memcpy(blk.data() + 18 + c_len + 4, &isz, 4);
     }
-    libdeflate_free_compressor(c);
   };
   std::vector<std::thread> threads;
   for (int t = 1; t < nt; ++t) threads.emplace_back(worker);

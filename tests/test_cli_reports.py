@@ -33,7 +33,7 @@ def test_cli_end_to_end(tmp_path):
     out_bam = str(tmp_path / "out.bam")
     json_path = str(tmp_path / "r.json")
     html_path = str(tmp_path / "r.html")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cp = subprocess.run(
         [sys.executable, "-m", "gencore_tpu.cli",
          "-i", bam_path, "-o", out_bam, "-r", fa_path, "-b", bed_path,
@@ -71,7 +71,7 @@ def test_cli_end_to_end(tmp_path):
 
 
 def test_cli_unit_test_subcommand():
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cp = subprocess.run([sys.executable, "-m", "gencore_tpu.cli", "test"],
                         capture_output=True, text=True, env=env,
                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -80,7 +80,7 @@ def test_cli_unit_test_subcommand():
 
 
 def test_cli_version():
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cp = subprocess.run([sys.executable, "-m", "gencore_tpu.cli", "--version"],
                         capture_output=True, text=True, env=env,
                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -90,7 +90,7 @@ def test_cli_version():
 
 def test_oracle_cli_matches_vector_cli(tmp_path):
     sb, bam_path, fa_path, bed_path = _make_inputs(tmp_path, with_bed=False)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     outs = {}
     for mode, extra in (("vec", []), ("orc", ["--oracle"])):
@@ -113,7 +113,7 @@ def test_oracle_cli_matches_vector_cli(tmp_path):
 
 def test_cli_sharded_matches_single(tmp_path):
     sb, bam_path, fa_path, _ = _make_inputs(tmp_path, with_bed=False)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     outs = {}
     for mode, extra in (("one", []), ("sh", ["--shards", "3"])):
@@ -136,7 +136,7 @@ def test_cli_pipelined_matches_single(tmp_path):
     """--windows N (overlapped window pipeline) produces a byte-identical
     output BAM and identical JSON stats vs a single-shot run."""
     sb, bam_path, fa_path, _ = _make_inputs(tmp_path, with_bed=False)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     outs = {}
     for mode, extra in (("one", ["--windows", "1"]), ("pw", ["--windows", "4"])):

@@ -39,9 +39,6 @@ def test_jax_distributed_two_processes(tmp_path):
         import os, sys
         sys.path.insert(0, {REPO!r})
         os.environ["JAX_PLATFORMS"] = "cpu"
-        os.environ["GENCORE_PLATFORM"] = "cpu"
-        import jax
-        jax.config.update("jax_platforms", "cpu")
         from gencore_tpu.options import Options
         from gencore_tpu.parallel import distributed as dist
         pid = int(sys.argv[1])
@@ -79,3 +76,21 @@ def test_jax_distributed_two_processes(tmp_path):
     assert int(sscs) == eng.post_stats.sscs_num
     assert int(dcs) == eng.post_stats.dcs_num
     assert int(reads) == eng.pre_stats.read
+
+
+@pytest.mark.parametrize("cards,ids", [(["0", "1"], [1]), (["4", "5"], [1]),
+                                       (None, None), ([], None)])
+def test_runtime_kwargs_pin_local_card(cards, ids):
+    """On a GPU host process p of one machine takes the p-th visible card
+    (a local device id, whatever the card's physical index)."""
+    from gencore_tpu.parallel import distributed as dist
+    kw = dist.runtime_kwargs("localhost:1234", 2, 1, cards)
+    assert kw["coordinator_address"] == "localhost:1234"
+    assert (kw["num_processes"], kw["process_id"]) == (2, 1)
+    assert kw.get("local_device_ids") == ids
+
+
+def test_runtime_kwargs_refuse_process_without_card():
+    from gencore_tpu.parallel import distributed as dist
+    with pytest.raises(ValueError, match="one process per card"):
+        dist.runtime_kwargs("localhost:1234", 4, 2, ["0", "1"])

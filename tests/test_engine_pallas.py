@@ -1,29 +1,27 @@
-"""Engine with the Pallas voting path (interpret mode on CPU) must match
-the default XLA path and the oracle."""
-
-import os
+"""Engine on its accelerator path (the [K, J, L] vote of core/vote.py,
+bucketed shapes, sparse downloads, device refbase, the fused window
+program), run here on the CPU, must match the oracle."""
 
 import pytest
 
+from gencore_tpu.engine import VectorEngine
 from tests.test_engine_equivalence import (assert_equivalent,
                                            make_random_workload, run_both)
 
 
 @pytest.fixture
-def force_pallas():
-    os.environ["GENCORE_FORCE_PALLAS"] = "interp"
-    yield
-    del os.environ["GENCORE_FORCE_PALLAS"]
+def accelerator_path(monkeypatch):
+    monkeypatch.setattr(VectorEngine, "accelerator_path", True)
 
 
-def test_pallas_engine_equivalence(tmp_path, force_pallas):
+def test_pallas_engine_equivalence(tmp_path, accelerator_path):
     sb = make_random_workload(90, n_fragments=60, umi_mode="duplex",
                               contig_len=300_000, n_contigs=1)
     o, v = run_both(sb, tmp_path)
     assert_equivalent(o, v)
 
 
-def test_pallas_engine_raw_quals(tmp_path, force_pallas):
+def test_pallas_engine_raw_quals(tmp_path, accelerator_path):
     """>15 distinct qual values: qual uploads fall back to raw mode and
     the vote-output nibble packing disables itself (no candidate table);
     output must still match the oracle."""
@@ -46,7 +44,7 @@ def test_pallas_engine_raw_quals(tmp_path, force_pallas):
     assert_equivalent(o, v)
 
 
-def test_pallas_engine_sparse_overflow(tmp_path, force_pallas):
+def test_pallas_engine_sparse_overflow(tmp_path, accelerator_path):
     """Jobs with more seq edits than the sparse wire cap (SPARSE_DIFFS)
     must round-trip through the dense overflow pull and still match the
     oracle: deep clusters where the template read carries many errors, so
@@ -68,9 +66,9 @@ def test_pallas_engine_sparse_overflow(tmp_path, force_pallas):
     assert_equivalent(o, v)
 
 
-def test_pallas_engine_shifted_members(tmp_path, force_pallas):
+def test_pallas_engine_shifted_members(tmp_path, accelerator_path):
     """Right-mode jobs with lenDiff shifts route through the host re-gather
-    + second pallas call."""
+    + second vote call."""
     from tests.datagen import SyntheticBam
     sb = SyntheticBam(seed=91, contig_len=100_000)
     # mixed-length right reads ending at the same ref pos (right-aligned

@@ -17,7 +17,7 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 
-from datagen import SyntheticBam  # noqa: E402
+from tests.datagen import SyntheticBam  # noqa: E402
 
 
 def _ref_available():
@@ -83,7 +83,7 @@ def test_golden_contig_mismatch_warnings():
             for i in range(0, len(c), 70):
                 f.write(c[i:i + 70] + "\n")
         ref_out = os.path.join(wd, "warn.ref.bam")
-        tpu_out = os.path.join(wd, "warn.tpu.bam")
+        eng_out = os.path.join(wd, "warn.eng.bam")
         rp = subprocess.run(
             [gc.REF_BIN, "-i", bam_in, "-r", fa, "-o", ref_out],
             capture_output=True, timeout=600)
@@ -92,19 +92,19 @@ def test_golden_contig_mismatch_warnings():
             [sys.executable, "-c",
              "import sys; from gencore_tpu import cli; "
              "sys.exit(cli.main(sys.argv[1:]))",
-             "-i", bam_in, "-r", fa, "-o", tpu_out],
+             "-i", bam_in, "-r", fa, "-o", eng_out],
             capture_output=True, timeout=600,
-            env={**os.environ, "GENCORE_PLATFORM": "cpu"})
+            env={**os.environ, "JAX_PLATFORMS": "cpu"})
         assert tp.returncode == 0, tp.stderr.decode()[-400:]
         from collections import Counter
         ref_warn = Counter(l for l in rp.stderr.decode().splitlines()
                            if "please make sure your reference" in l)
-        tpu_warn = Counter(l for l in tp.stderr.decode().splitlines()
+        eng_warn = Counter(l for l in tp.stderr.decode().splitlines()
                            if "please make sure your reference" in l)
-        assert ref_warn == tpu_warn
+        assert ref_warn == eng_warn
         assert sum("not found" in k for k in ref_warn.elements()) == 1
         _, rrecs = gc.decode_records(ref_out)
-        _, trecs = gc.decode_records(tpu_out)
+        _, trecs = gc.decode_records(eng_out)
         assert sorted(rrecs) == sorted(trecs)
 
 

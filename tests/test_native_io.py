@@ -75,6 +75,22 @@ def test_tsan_native_core():
     assert "WARNING: ThreadSanitizer" not in r.stderr
 
 
+def test_zlib_codec_round_trips(tmp_path):
+    """The core's zlib BGZF round-trips and interoperates with Python's
+    gzip in both directions (a BGZF file is a series of gzip members)."""
+    import gzip
+    payload = np.random.default_rng(0).integers(
+        0, 4, size=300_000).astype(np.uint8)
+    native_file = str(tmp_path / "native.bgz")
+    assert native.bgzf_write(native_file, payload)
+    assert (native.bgzf_read(native_file) == payload).all()
+    with open(native_file, "rb") as f:
+        assert gzip.decompress(f.read()) == payload.tobytes()
+    py_file = str(tmp_path / "py.bgz")
+    bgzf.compress_to_file(py_file, payload.tobytes())
+    assert (native.bgzf_read(py_file) == payload).all()
+
+
 def test_mi_flags_matches_numpy_predicate():
     """gc_mi_flags must reproduce the engine's numpy candidate predicate
     ('M','I','Z' inside [aux_off, end-4)) byte for byte."""

@@ -1,7 +1,7 @@
 """Hand-computed scenario tests for the scalar oracle engine.
 
 These pin down the reference semantics (dedup, ref arbitration, duplex,
-thresholds, pass-through) that the vectorized TPU engine must then match
+thresholds, pass-through) that the vectorized engine must then match
 exactly (see test_engine_equivalence.py).
 """
 

@@ -101,7 +101,7 @@ def test_cli_sam_input_matches_bam_input(tmp_path):
         w.write_record(body)
     w.close()
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     outs = {}
     for mode, inp in (("bam", patched), ("sam", sam_path)):

@@ -14,7 +14,7 @@ def test_sam_output(tmp_path):
     bam_path = str(tmp_path / "in.bam")
     sb.write_bam(bam_path)
     out_sam = str(tmp_path / "out.sam")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cp = subprocess.run(
         [sys.executable, "-m", "gencore_tpu.cli", "-i", bam_path, "-o", out_sam,
@@ -46,7 +46,7 @@ def test_stdout_is_bam(tmp_path):
         sb.add_pair(0, 1000 + 300 * k, 1120 + 300 * k, umi="ACGT")
     bam_path = str(tmp_path / "in.bam")
     sb.write_bam(bam_path)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cp = subprocess.run(
         [sys.executable, "-m", "gencore_tpu.cli", "-i", bam_path, "-o", "-",
@@ -82,7 +82,7 @@ def test_stdin_to_stdout_pipe(tmp_path):
         sb.add_pair(0, 1000 + 400 * k, 1150 + 400 * k, umi="ACGT")
     bam_path = str(tmp_path / "in.bam")
     sb.write_bam(bam_path)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", GENCORE_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(bam_path, "rb") as fin:
         cp = subprocess.run(

@@ -143,7 +143,7 @@ def test_piped_stdin_stdout_streams(tmp_path):
     sb.write_bam(bam_path)
     sb.write_fasta(fa_path)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {**os.environ, "GENCORE_PLATFORM": "cpu",
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "GENCORE_STREAM_THRESHOLD": "1",
            "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
     out_file = str(tmp_path / "out_file.bam")

@@ -28,9 +28,17 @@ REF_BIN = os.path.join(REPO, "native", "htsshim", "build", "gencore_ref")
 
 
 def build_ref():
-    if not os.path.exists(REF_BIN):
-        subprocess.run(["make", "-C", os.path.join(REPO, "native", "htsshim")],
-                       check=True, capture_output=True)
+    """Bring the reference binary up to date (make is incremental). Every
+    parallel test worker calls this while it collects, so one worker
+    builds at a time: concurrent makes rewrite the same objects and binary,
+    and one worker's failed link can delete the binary another worker has
+    just found."""
+    import fcntl
+    shim = os.path.join(REPO, "native", "htsshim")
+    os.makedirs(os.path.join(shim, "build"), exist_ok=True)
+    with open(os.path.join(shim, "build", ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-C", shim], check=True, capture_output=True)
 
 
 def decode_records(path):
@@ -82,7 +90,7 @@ def normalize_json(path):
 
 def run_case(name, sb, args, workdir, report=True):
     """Returns list of failure strings (empty = pass)."""
-    from gencore_tpu import cli as tpucli
+    from gencore_tpu import cli as engcli
 
     bam_in = os.path.join(workdir, f"{name}.bam")
     fa = os.path.join(workdir, f"{name}.fa")
@@ -97,11 +105,11 @@ def run_case(name, sb, args, workdir, report=True):
         args = [bed_path if a == "__BED__" else a for a in args]
 
     ref_out = os.path.join(workdir, f"{name}.ref.bam")
-    tpu_out = os.path.join(workdir, f"{name}.tpu.bam")
+    eng_out = os.path.join(workdir, f"{name}.eng.bam")
     ref_json = os.path.join(workdir, f"{name}.ref.json")
-    tpu_json = os.path.join(workdir, f"{name}.tpu.json")
+    eng_json = os.path.join(workdir, f"{name}.eng.json")
     ref_html = os.path.join(workdir, f"{name}.ref.html")
-    tpu_html = os.path.join(workdir, f"{name}.tpu.html")
+    eng_html = os.path.join(workdir, f"{name}.eng.html")
 
     base = ["-i", bam_in, "-r", fa] + args
     rp = subprocess.run(
@@ -110,30 +118,30 @@ def run_case(name, sb, args, workdir, report=True):
     if rp.returncode != 0:
         return [f"{name}: reference binary failed rc={rp.returncode}: "
                 f"{rp.stderr.decode()[-400:]}"]
-    rc = tpucli.main(base + ["-o", tpu_out, "-j", tpu_json, "--html", tpu_html])
+    rc = engcli.main(base + ["-o", eng_out, "-j", eng_json, "--html", eng_html])
     if rc != 0:
-        return [f"{name}: tpu cli failed rc={rc}"]
+        return [f"{name}: engine cli failed rc={rc}"]
 
     fails = []
     rb, rrecs = decode_records(ref_out)
-    tb, trecs = decode_records(tpu_out)
+    tb, trecs = decode_records(eng_out)
     if sorted(rrecs) != sorted(trecs):
         rset, tset = set(rrecs), set(trecs)
         only_ref = [r for r in rrecs if r not in tset][:3]
-        only_tpu = [t for t in trecs if t not in rset][:3]
+        only_eng = [t for t in trecs if t not in rset][:3]
         fails.append(
-            f"{name}: BAM records differ: ref={len(rrecs)} tpu={len(trecs)}, "
+            f"{name}: BAM records differ: ref={len(rrecs)} engine={len(trecs)}, "
             f"ref-only={len([r for r in rrecs if r not in tset])} "
-            f"tpu-only={len([t for t in trecs if t not in rset])}")
+            f"engine-only={len([t for t in trecs if t not in rset])}")
         for r in only_ref:
             fails.append(f"  ref-only: {r[:60].hex()}")
-        for t in only_tpu:
-            fails.append(f"  tpu-only: {t[:60].hex()}")
+        for t in only_eng:
+            fails.append(f"  engine-only: {t[:60].hex()}")
     elif record_keys(rb) != record_keys(tb):
         fails.append(f"{name}: record ORDER differs (same multiset)")
-    if report and normalize_json(ref_json) != normalize_json(tpu_json):
+    if report and normalize_json(ref_json) != normalize_json(eng_json):
         fails.append(f"{name}: JSON reports differ")
-    if report and normalize_html(ref_html) != normalize_html(tpu_html):
+    if report and normalize_html(ref_html) != normalize_html(eng_html):
         fails.append(f"{name}: HTML reports differ")
     return fails
 
@@ -216,12 +224,8 @@ def make_cases(quick=False):
 
 def setup_env():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    cache = os.path.join(REPO, "bench_data", "jax_cache_cpu")
-    os.makedirs(cache, exist_ok=True)
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from gencore_tpu.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
 
 
 def main():

@@ -1,5 +1,5 @@
 """Peak-RSS demonstration for the bounded-memory streaming mode
-(VERDICT r2 item 5; reference comparator: O(window) streaming at
+(reference comparator: O(window) streaming at
 gencore.cpp:205).
 
 Runs the same workload through (a) the in-memory window pipeline and
@@ -27,12 +27,8 @@ import os, sys, json, tracemalloc
 os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, {repo!r})
 tracemalloc.start()
-import jax
-jax.config.update("jax_platforms", "cpu")
-cache = os.path.join({repo!r}, "bench_data", "jax_cache_cpu")
-os.makedirs(cache, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gencore_tpu.utils.compile_cache import setup_compile_cache
+setup_compile_cache()
 from gencore_tpu.options import Options
 
 mode = {mode!r}
@@ -59,7 +55,7 @@ for line in open("/proc/self/status"):
     if line.startswith("VmHWM:"):
         kb = int(line.split()[1])
 # tracemalloc tracks python+numpy allocations but NOT the XLA CPU
-# client's buffer pool — on a real TPU host those buffers live in HBM,
+# client's buffer pool — on an accelerator host those buffers live in device memory,
 # so the traced peak is the honest host-residency number
 cur, peak = tracemalloc.get_traced_memory()
 print(json.dumps({{"mode": mode, "vmhwm_mb": round(kb / 1024, 1),
